@@ -1,7 +1,7 @@
 """Batched engine end-to-end parity: engine VCF == reference binary VCF.
 
 This is the headline correctness test: the full fixture FASTQ through the
-fixed-shape TPU pipeline (on the CPU test mesh), then byte-comparison of the
+fixed-shape device pipeline (on the CPU test mesh), then byte-comparison of the
 rewritten VCF against the compiled reference's output. Overflow counters must
 all be zero (no capacity truncation) for the comparison to be meaningful.
 """

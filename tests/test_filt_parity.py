@@ -1,4 +1,4 @@
-"""`filt` golden parity vs the reference binary (VERDICT r1 item 6).
+"""`filt` golden parity vs the reference binary.
 
 ``golden.filt.ref.dict`` is the output of the compiled reference's
 ``vargeno filt`` (src/dict_filt.c:23-79) on the mini fixture's golden

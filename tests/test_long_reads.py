@@ -1,4 +1,4 @@
-"""Long-read handling at DEFAULT flags (VERDICT r1 item 5).
+"""Long-read handling at DEFAULT flags.
 
 The reference handles reads up to its 1023-char fgets buffer
 (src/qv.cc:700), flooring each to a 32-base multiple (qv.cc:778-779).

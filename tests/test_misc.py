@@ -1,4 +1,4 @@
-"""Hash table, Pallas vote (interpret mode), filt, and CLI smoke tests."""
+"""Hash table, vote scan, filt, and CLI smoke tests."""
 
 import os
 import subprocess
@@ -43,54 +43,32 @@ def test_hashtable_roundtrip():
     assert not bool(np.asarray(hit2).any())
 
 
-def test_pallas_vote_interpret_matches_scan():
-    """The VMEM vote kernel (interpret mode on CPU) vs the lax.scan path."""
-    import jax
+@pytest.mark.parametrize("E,B,C,n_idx", [
+    (32, 256, 16, 20),    # tables never fill
+    (16, 512, 4, 40),     # small C: inserts overflow and are counted
+    (24, 300, 2, 8),
+])
+def test_vote_scan_matches_sequential_oracle(E, B, C, n_idx):
+    """The engine's vote (engine.batch.vote_scan) vs the per-read
+    sequential oracle of improved_index_table_add (qv.cc:132-178)."""
     import jax.numpy as jnp
 
-    from vargeno_tpu.engine.pallas_vote import vote_scan_pallas
+    from vargeno_tpu.engine.batch import vote_scan
+    from vargeno_tpu.testing import vote_reference
 
-    E, B, C = 32, 256, 16
     rng = np.random.default_rng(7)
-    idx = jnp.asarray(rng.integers(0, 20, (E, B)).astype(np.uint32))
-    k = jnp.asarray(rng.integers(0, 4, (E, B)).astype(np.int32))
-    isnb = jnp.asarray(rng.random((E, B)) < 0.3)
-    val = jnp.asarray(rng.random((E, B)) < 0.3)
-    process, target, ovf = vote_scan_pallas(idx, k, isnb, val, C,
-                                            interpret=True)
-
-    # sequential oracle of improved_index_table_add (qv.cc:132-178)
-    P = np.zeros(B, bool)
-    T = np.zeros(B, np.uint32)
-    ii, ki, ni, vi = (np.asarray(x) for x in (idx, k, isnb, val))
-    for b in range(B):
-        freq, sup = {}, {}
-        best, bf, amb = None, 0, False
-        for e in range(E):
-            if not vi[e, b]:
-                continue
-            x, kk, nb = int(ii[e, b]), int(ki[e, b]), bool(ni[e, b])
-            if nb and x not in sup:
-                continue
-            freq[x] = freq.get(x, 0) + 1
-            sup.setdefault(x, set()).add(kk)
-            if best is not None and x == best:
-                bf += 1
-            if len(sup[x]) < 2:
-                continue
-            f2 = freq[x]
-            if best is None:
-                best, bf, amb = x, f2, False
-            elif x == best:
-                amb = False
-            elif f2 == bf:
-                amb = True
-            elif f2 > bf:
-                best, bf, amb = x, f2, False
-        P[b] = best is not None and freq[best] > 1 and not amb
-        T[b] = best if best is not None else 0
+    idx = rng.integers(0, n_idx, (E, B)).astype(np.uint32)
+    k = rng.integers(0, 4, (E, B)).astype(np.int32)
+    isnb = rng.random((E, B)) < 0.3
+    val = rng.random((E, B)) < 0.6
+    process, target, ovf = vote_scan(jnp.asarray(idx), jnp.asarray(k),
+                                     jnp.asarray(isnb), jnp.asarray(val), C)
+    P, T, O = vote_reference(idx, k, isnb, val, C)
+    assert P.any()
     np.testing.assert_array_equal(np.asarray(process), P)
     np.testing.assert_array_equal(np.asarray(target)[P], T[P])
+    assert int(ovf) == O
+    assert (O > 0) == (C < 8)
 
 
 def test_filt(mini_index, tmp_path):

@@ -30,9 +30,6 @@ def main():
 
     import numpy as np
 
-    from vargeno_tpu.utils.compile_cache import enable
-
-    enable()
     from vargeno_tpu.config import GenoConfig
     from vargeno_tpu.engine.cohort import CohortRunner
     from vargeno_tpu.index import store
@@ -46,7 +43,7 @@ def main():
 
     index = store.load(os.path.join(CACHE, "bench"))
     cfg = GenoConfig(batch_reads=32768, max_read_len=128,
-                     max_kmers_per_read=3, pallas_vote=True,
+                     max_kmers_per_read=3,
                      auto_tune=True, tune_batches=2)
     names = [f"d{i}" for i in range(args.donors)]
     cohort = CohortRunner(index, names, cfg)

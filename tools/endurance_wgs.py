@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""WGS endurance run with mid-run SIGKILL + resume parity (VERDICT r4 #6).
+"""WGS endurance run with mid-run SIGKILL + resume parity.
 
 Drives tools/rehearse_wgs.py at the reference's headline scale (3 Gb
 genome, 5M SNPs, sharded-dictionary mesh) through THREE geno legs over the

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""`filt` golden fixture (VERDICT r1 item 6).
+"""`filt` golden fixture.
 
 Runs the reference binary's `filt` subcommand (src/dict_filt.c:23-79,
 CLI src/qv.cc:2009-2025) on the mini fixture's golden ref.dict, using a

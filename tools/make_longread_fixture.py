@@ -5,8 +5,7 @@ genome + golden output from the reference binary.
 The reference handles reads up to its 1023-char fgets buffer
 (/root/reference/src/qv.cc:700) and floors each to a 32-multiple
 (qv.cc:778-779). This fixture pins the repo's default-flag behavior on
->128 bp inputs (VERDICT r1 item 5: a >128 bp FASTQ must not silently
-truncate at default flags).
+>128 bp inputs.
 
 Usage: python tools/make_longread_fixture.py [--ref-binary /tmp/refbuild/vargeno]
 """

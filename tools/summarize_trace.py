@@ -20,7 +20,7 @@ def main():
     with gzip.open(paths[-1], "rt") as f:
         data = json.load(f)
     events = data.get("traceEvents", [])
-    # device lanes: pid names containing TPU/device; fall back to all X events
+    # every complete (X) event, device and host
     totals = collections.Counter()
     for e in events:
         if e.get("ph") != "X":

@@ -11,7 +11,7 @@ from vargeno_tpu.engine.geno import GenoRunner
 log("loading npz")
 index = store.load_npz("/tmp/vgt_bench48/bench")
 log("npz loaded; GenoRunner init")
-cfg = GenoConfig(batch_reads=32768, max_read_len=128, max_kmers_per_read=4, pallas_vote=True)
+cfg = GenoConfig(batch_reads=32768, max_read_len=128, max_kmers_per_read=4)
 runner = GenoRunner(index, cfg, queued_orientation=True)
 log("runner ready; warm/compile 2 batches")
 runner.consume_fastq("/tmp/vgt_bench48/reads.fq", limit_batches=2)

@@ -28,7 +28,7 @@ _DIX = [None]
 
 def run_point(index, group, depth, pre_encode=True, passes=2):
     cfg = GenoConfig(batch_reads=32768, max_read_len=128,
-                     max_kmers_per_read=4, pallas_vote=True,
+                     max_kmers_per_read=4,
                      pre_encode=pre_encode, group_size=group,
                      pipeline_depth=depth, events_per_read=16)
     if _DIX[0] is None:

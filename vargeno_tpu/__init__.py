@@ -1,9 +1,9 @@
-"""vargeno_tpu: a TPU-native, alignment-free SNP genotyping framework.
+"""vargeno_tpu: an accelerator-native, alignment-free SNP genotyping framework.
 
-A from-scratch JAX/XLA/Pallas redesign with the capabilities of
+A from-scratch JAX/XLA redesign with the capabilities of
 medvedevgroup/vargeno: `index` builds 32-mer reference/SNP dictionaries and
 Bloom filters from FASTA+VCF; `geno` streams FASTQ reads in fixed-shape
-batches through a batched TPU lookup/vote/pileup engine and writes GT/GQ
+batches through a batched device lookup/vote/pileup engine and writes GT/GQ
 calls into the input VCF.
 """
 
@@ -11,45 +11,34 @@ __version__ = "0.1.0"
 
 import os as _os
 
+# fixed in-repo cache path: the path is part of the cache's key, so it must
+# not move between processes
+REPO_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def compile_cache_dir(environ=_os.environ):
+    """The directory this package points JAX's persistent compilation cache
+    at, or None when ``JAX_COMPILATION_CACHE_DIR`` is set (JAX then reads
+    that directory itself and the package sets no other)."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return REPO_CACHE_DIR
+
 
 def _enable_compilation_cache() -> None:
-    """Persistent XLA compilation cache (the engine's batch step takes
-    minutes to compile at production shapes; cached executables load in
-    seconds).  Opt out with VGT_NO_COMPILE_CACHE=1; an explicit
-    JAX_COMPILATION_CACHE_DIR always wins."""
-    if _os.environ.get("VGT_NO_COMPILE_CACHE"):
+    """Persistent XLA compilation cache: the engine's batch step takes
+    tens of seconds to compile at production shapes, and a cached
+    executable loads in seconds in every later process."""
+    path = compile_cache_dir()
+    if path is None:
         return
-    try:
-        import jax
+    import jax
 
-        if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-            return
-        if jax.config.jax_compilation_cache_dir:
-            return
-        path = _os.path.expanduser("~/.cache/vargeno_tpu/xla")
-        _os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:  # jax absent or too old: cache is best-effort only
-        pass
-
-
-def _honor_platform_env() -> None:
-    """Make JAX_PLATFORMS reliable: some out-of-tree device plugins ignore
-    the env var but respect the config API, so a user asking for
-    JAX_PLATFORMS=cpu would still hang on an unreachable accelerator."""
-    plat = _os.environ.get("JAX_PLATFORMS")
-    if not plat:
-        return
-    try:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
-    except Exception:
-        pass
+    jax.config.update("jax_compilation_cache_dir", path)
 
 
 _enable_compilation_cache()
-_honor_platform_env()
 
 from .config import DEFAULT_CONFIG, GenoConfig  # noqa: F401

@@ -88,6 +88,56 @@ def _config(args, fastqs=()):
     return GenoConfig(**kw)
 
 
+def geno(args):
+    """The `geno` subcommand; returns the runner it drove (in-process
+    callers read its counts and telemetry)."""
+    if args.multihost:
+        # before ANY jax backend use in this process
+        from .dist import multihost
+
+        multihost.initialize(args.multihost, args.num_processes,
+                             args.process_id,
+                             cpu_devices=args.mh_cpu_devices)
+    cfg = _config(args, fastqs=(args.reads_fq,))
+    from .index import store
+
+    index = store.load(args.prefix)
+    if args.multihost:
+        from .dist import multihost
+        from .dist.sharding import make_mesh
+
+        mesh = make_mesh(args.mesh or None)
+        cls = (multihost.MultiHostDictGenoRunner if args.sharded_dict
+               else multihost.MultiHostGenoRunner)
+        runner = cls(index, mesh, cfg,
+                     queued_orientation=not args.mh_inline_dual,
+                     metrics_path=args.metrics)
+    elif args.mesh:
+        from .dist.sharded_dict import ShardedDictGenoRunner
+        from .dist.sharding import ShardedGenoRunner, make_mesh
+
+        mesh = make_mesh(args.mesh)
+        cls = (ShardedDictGenoRunner if args.sharded_dict
+               else ShardedGenoRunner)
+        runner = cls(index, mesh, cfg, metrics_path=args.metrics)
+    else:
+        from .engine.geno import GenoRunner
+
+        runner = GenoRunner(index, cfg, metrics_path=args.metrics)
+    runner.consume_fastq(args.reads_fq,
+                         checkpoint_path=args.checkpoint,
+                         limit_batches=args.limit_batches)
+    if args.metrics:
+        runner.meter.emit()
+    runner.write_vcf(args.snp_vcf, args.out_vcf)
+    if args.multihost:
+        import jax
+
+        multihost.barrier("done")
+        jax.distributed.shutdown()
+    return runner
+
+
 def main(argv=None):
     try:
         return _main(argv)
@@ -97,7 +147,7 @@ def main(argv=None):
         return 2
 
 
-def _main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="vargeno-tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -120,8 +170,6 @@ def _main(argv=None):
                         "testing / partial runs)")
     p.add_argument("--metrics", default=None,
                    help="append jsonl throughput metrics to this path")
-    p.add_argument("--pallas-vote", action="store_true",
-                   help="use the Pallas VMEM vote kernel (TPU)")
     p.add_argument("--mesh", type=int, default=0,
                    help="data-parallel over N devices (0 = single device; "
                         "with --multihost, 0 = all global devices)")
@@ -212,13 +260,12 @@ def _main(argv=None):
     p.add_argument("prefix")
     p.add_argument("out_prefix")
 
+    return ap
+
+
+def _main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(argv)
-
-    # persistent XLA compilation cache: the batch step compiles in minutes
-    # on TPU backends; later processes at the same shapes load in seconds
-    from .utils.compile_cache import enable as _enable_compile_cache
-
-    _enable_compile_cache()
 
     if args.cmd == "help":
         # reference: `vargeno help` prints usage (src/qv.cc:1853-1873)
@@ -233,54 +280,7 @@ def _main(argv=None):
         return 0
 
     if args.cmd == "geno":
-        if args.multihost:
-            # before ANY jax backend use in this process
-            from .dist import multihost
-
-            multihost.initialize(args.multihost, args.num_processes,
-                                 args.process_id,
-                                 cpu_devices=args.mh_cpu_devices)
-        cfg = _config(args, fastqs=(args.reads_fq,))
-        if args.pallas_vote:
-            import dataclasses as _dc
-
-            cfg = _dc.replace(cfg, pallas_vote=True)
-        from .index import store
-
-        index = store.load(args.prefix)
-        if args.multihost:
-            from .dist import multihost
-            from .dist.sharding import make_mesh
-
-            mesh = make_mesh(args.mesh or None)
-            cls = (multihost.MultiHostDictGenoRunner if args.sharded_dict
-                   else multihost.MultiHostGenoRunner)
-            runner = cls(index, mesh, cfg,
-                         queued_orientation=not args.mh_inline_dual,
-                         metrics_path=args.metrics)
-        elif args.mesh:
-            from .dist.sharded_dict import ShardedDictGenoRunner
-            from .dist.sharding import ShardedGenoRunner, make_mesh
-
-            mesh = make_mesh(args.mesh)
-            cls = (ShardedDictGenoRunner if args.sharded_dict
-                   else ShardedGenoRunner)
-            runner = cls(index, mesh, cfg, metrics_path=args.metrics)
-        else:
-            from .engine.geno import GenoRunner
-
-            runner = GenoRunner(index, cfg, metrics_path=args.metrics)
-        runner.consume_fastq(args.reads_fq,
-                             checkpoint_path=args.checkpoint,
-                             limit_batches=args.limit_batches)
-        if args.metrics:
-            runner.meter.emit()
-        runner.write_vcf(args.snp_vcf, args.out_vcf)
-        if args.multihost:
-            import jax
-
-            multihost.barrier("done")
-            jax.distributed.shutdown()
+        geno(args)
         return 0
 
     if args.cmd == "cohort":

@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU-native VarGeno framework.
+"""Runtime configuration for the JAX VarGeno engine.
 
 The reference implementation (medvedevgroup/vargeno) hard-codes all of these as
 compile-time ``#define``s (reference: src/vartype.h:6-17,27,93,103;
@@ -58,7 +58,7 @@ class GenoConfig:
     ref_lite_bf_bytes: int = 2_300_000_000
     snp_bf_bytes: int = 140_000_000
 
-    # --- TPU engine shapes (new; no reference equivalent: the reference is
+    # --- device engine shapes (new; no reference equivalent: the reference is
     # single-threaded and processes one read at a time, src/qv.cc:760) ---
     batch_reads: int = 4096        # reads per device batch
     max_read_len: int = 128        # padded read length (>= read_len)
@@ -128,27 +128,19 @@ class GenoConfig:
                                    # the combined tagged table answers
                                    # both dicts in one gather, making
                                    # this inert for LocalBackend)
-    pallas_vote: bool | None = None  # VMEM-resident vote kernel. None =
-                                   # auto: ON when the default backend is
-                                   # a TPU (the measured-fast path ships
-                                   # by default), OFF on CPU hosts where
-                                   # Mosaic would need interpret mode
-    pallas_interpret: bool = False  # run Pallas kernels interpreted (CPU)
     pre_encode: bool = True        # host-side kmer packing in queued mode:
                                    # dispatch ships (hi, lo) u32 words +
                                    # masks (~1.3 MB/32K batch) instead of
-                                   # (B, L) u8 codes (~4.2 MB) -- matters on
-                                   # tunneled/high-latency dispatch links
+                                   # (B, L) u8 codes (~4.2 MB)
     pipeline_depth: int = 2        # in-flight device batches in the host
                                    # dispatch loop (1 = classic double
-                                   # buffering; deeper hides dispatch-link
+                                   # buffering; deeper hides dispatch
                                    # latency at the cost of delayed retry
                                    # queueing -- results are identical)
     group_size: int = 1            # sub-batches scanned per device dispatch
                                    # (queued + pre_encode mode): one host
-                                   # round trip / stats sync per GROUP --
-                                   # the lever for high-latency (tunneled)
-                                   # dispatch links; results are identical
+                                   # round trip / stats sync per GROUP;
+                                   # results are identical
     ht_target_load: float = 0.24   # combined exact-lookup table bucket load
                                    # factor (engine.device_index): 0.24
                                    # makes the probe chain 1 on most

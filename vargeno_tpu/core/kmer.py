@@ -1,4 +1,4 @@
-"""Vectorized 2-bit k-mer codec (k=32) for TPU.
+"""Vectorized 2-bit k-mer codec (k=32) for the device path.
 
 Bit layout matches the reference exactly: base at *string index* ``i`` of the
 32-mer occupies bits ``[2i, 2i+1]`` of the packed 64-bit word (reference:

@@ -1,12 +1,11 @@
-"""64-bit integer arithmetic as (hi, lo) uint32 pairs for TPU.
+"""64-bit integer arithmetic as (hi, lo) uint32 pairs for the device path.
 
-TPU vector units have no native 64-bit integer path (and Pallas/Mosaic kernels
-cannot use them at all), so every 64-bit quantity in the device compute path is
-carried as a pair of uint32 arrays ``(hi, lo)`` with value ``hi * 2**32 + lo``.
+JAX runs with 64-bit types disabled by default, so every 64-bit quantity in
+the device compute path is carried as a pair of uint32 arrays ``(hi, lo)``
+with value ``hi * 2**32 + lo``.
 
-These helpers are pure jnp ops (add/mul/xor/shift on uint32), so they work both
-in regular jitted code and inside Pallas kernels, and they vectorize over any
-leading batch shape.
+These helpers are pure jnp ops (add/mul/xor/shift on uint32), so they work in
+any jitted code, and they vectorize over any leading batch shape.
 """
 
 from __future__ import annotations

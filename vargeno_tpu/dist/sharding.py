@@ -1,7 +1,7 @@
 """Multi-chip execution: data-parallel read streaming over a device mesh.
 
 The reference is strictly single-threaded (SURVEY.md §2.4); all parallelism
-here is new, TPU-native design:
+here is new design:
 
 - Reads are the data axis: each device processes ``batch_reads`` reads per
   step (global batch = D * batch_reads), with the index replicated.

@@ -119,11 +119,10 @@ class LocalBackend:
         then a DIRECT bucket-row lookup on the compacted lanes.
 
         A one-bit membership prefilter + second compaction used to sit
-        between them, but an in-step trace showed the prefilter's 4 B word
-        gather running at ~34 M lanes/s while the full-lane-width 512 B
-        bucket rows gather at ~95-100 M rows/s (tools/bench_rowwidth.py;
-        XLA scalarizes sub-lane-width random gathers but row-DMAs full
-        tiles) -- the filter cost ~3x the probes it pruned. Returns the
+        between them, but an in-step trace on the chip this engine was
+        first tuned on showed the filter costing more than the 512 B
+        bucket-row probes it pruned (tools/bench_rowwidth.py re-measures
+        the row rates). Returns the
         exact_both 7-tuple with hits masked by the per-dict activity
         masks."""
         from .hashtable import ht_lookup_both
@@ -157,9 +156,9 @@ class LocalBackend:
             ht_lookup_both(d.both_ht, d.both_ht_nb, d.both_ht_chain,
                            qh_c, ql_c, a_ok)
         # scatter-back straight to the ORIGINAL lane ids; one scalar
-        # scatter per result word -- scalar-element scatters vectorize
-        # (~600 M lanes/s) where a 3-word row scatter of the same source
-        # count is ~25x slower
+        # scatter per result word (scalar-element scatters measured far
+        # faster than row scatters on the chip this engine was first
+        # tuned on; tools/bench_gather.py re-measures both)
         bits = (r_hit.astype(U32) | (s_hit.astype(U32) << 1)
                 | (r_flag.astype(U32) << 8) | (s_flag.astype(U32) << 16)
                 | (s_info.astype(U32) << 24))

@@ -1,8 +1,9 @@
 """Device-resident index: every dictionary/Bloom/site array as jnp tensors.
 
-K-mers are (hi, lo) uint32 pairs (no 64-bit integers on the TPU vector path;
-see core.kmer). Dictionaries stay sorted by the u64 key, i.e. by (hi, lo)
-lexicographically; jumpgates are unnecessary on TPU -- block bounds come from
+K-mers are (hi, lo) uint32 pairs (the device path keeps 32-bit lanes; see
+core.kmer). Dictionaries stay sorted by the u64 key, i.e. by (hi, lo)
+lexicographically; jumpgates are unnecessary on the device -- block bounds
+come from
 binary search over the same sorted arrays (replacing the reference's 16 GiB
 2^32-entry jumpgate, src/qv.cc:528-584, with O(log n) searches).
 
@@ -60,7 +61,7 @@ class DeviceIndex:
     site_rank: jax.Array   # (nwords,) i32: # of site bits before each word
     # (succinct rank directory: site_id(pos) = site_rank[pos>>5] +
     #  popcount(bitmap[pos>>5] & low_mask), replacing binary search in the
-    #  pileup scatter -- the TPU analog of sdsl's rank_support_v)
+    #  pileup scatter -- the device analog of sdsl's rank_support_v)
     site_dir: jax.Array    # (nwords, 4) u32 [bm, rank, bm_next, rank_next]:
                            # a 32-base context spans <=2 words; pairing each
                            # word with its successor makes that ONE gather

@@ -1,9 +1,9 @@
 """Bucketized open-addressing hash table for exact k-mer lookups.
 
 The reference resolves an exact lookup with a 16 GiB jumpgate load plus a
-binary search (src/qv.cc:206-240). A TPU gather costs full HBM latency and
-a branchless binary search needs ~2*ceil(log2 n) dependent gathers, so the
-lookup structure is redesigned around the TPU's memory system: keys live in
+binary search (src/qv.cc:206-240). A device gather costs full memory
+latency and a branchless binary search needs ~2*ceil(log2 n) dependent
+gathers, so the lookup structure is redesigned around wide rows: keys live in
 8-slot buckets laid out as one contiguous 128-byte row, probing fetches ONE
 row per visited bucket (a single gather descriptor) and compares all 8 slots
 in vector registers. Linear probing across buckets; the number of unrolled
@@ -49,17 +49,14 @@ def build_hash_table(hi: np.ndarray, lo: np.ndarray, pos: np.ndarray,
                      slots_per_bucket: int = 32,
                      target_load: float = 0.5,
                      use_native: bool = True) -> HostHashTable:
-    """32 slots/bucket = 128 u32 = exactly ONE (8,128) TPU tile row.
+    """32 slots/bucket = 128 u32 = one 512 B row per bucket.
 
-    Two effects, both measured on the real chip:
-    - sub-tile-width rows (8/16 slots = 64/128 B) made XLA RELAYOUT the
-      whole multi-GB table with a copy op EVERY STEP (3x ~20 ms/step on
-      the bench index: %copy of u32[16M,64] + remats in the HLO);
-      tile-width rows keep the parameter layout usable in place.
-    - at 0.5 load a 32-slot bucket practically never overflows, so the
-      probe chain bound is ~1, and gathers cost ~fixed time per LANE
-      (tools/bench_gather.py), so one wide row beats 2-3 narrow rows.
-    Memory: nb*512 B = ~32 B/key at 0.5 load (vs 53 B/key before)."""
+    At 0.5 load a 32-slot bucket practically never overflows, so the probe
+    chain bound is ~1 and one wide-row gather answers a lookup. The row
+    width was chosen on the chip this engine was first tuned on; on the
+    H100 a row is four 128 B lines, and tools/bench_rowwidth.py +
+    tools/bench_gather.py re-measure the trade (ROADMAP 1.4).
+    Memory: nb*512 B = ~32 B/key at 0.5 load."""
     n = hi.shape[0]
     nb = 1 << max(2, int(np.ceil(np.log2(
         max(n / (slots_per_bucket * target_load), 1.0)))))
@@ -173,10 +170,9 @@ def ht_lookup_both(table2d, nb: int, chain: int, q_hi, q_lo, valid=None):
     Returns (r_hit, r_pos, r_flag, s_hit, s_pos, s_info, s_flag)."""
     shp = q_hi.shape
     if len(shp) != 1:
-        # flatten-gather-reshape: XLA lowers a (B, K)-index row gather
-        # ~3x slower than the same gather with flat indices (measured
-        # 9.1 vs 28.2 M rows/s on v5e -- the (B, K, 32, 1) result layout
-        # tiles its trailing unit dim to 128 lanes)
+        # flatten-gather-reshape: a (B, K)-index row gather lowered
+        # slower than the same gather with flat indices on the chip this
+        # engine was first tuned on (tools/bench_gather.py re-measures it)
         out = ht_lookup_both(table2d, nb, chain, q_hi.reshape(-1),
                              q_lo.reshape(-1),
                              None if valid is None else valid.reshape(-1))
@@ -240,8 +236,7 @@ def ht_lookup(table2d, nb: int, chain: int, q_hi, q_lo, valid=None):
     traffic (results for those lanes are masked to miss)."""
     shp = q_hi.shape
     if len(shp) != 1:
-        # flatten-gather-reshape (see ht_lookup_both: multi-dim index
-        # shapes lower ~3x slower on TPU)
+        # flatten-gather-reshape (see ht_lookup_both)
         out = ht_lookup(table2d, nb, chain, q_hi.reshape(-1),
                         q_lo.reshape(-1),
                         None if valid is None else valid.reshape(-1))

@@ -7,7 +7,7 @@ java.util.HashMap-style chained hash table (src/pileup.{h,c}): hash
 size, load factor 0.4, x2 growth, insert-at-head chaining, first-insert
 wins (ptable_add returns early when the key exists, pileup.c:63-66).
 
-On TPU the engine's site tensors already ARE the compact representation
+On the device the engine's site tensors already ARE the compact representation
 (only real SNP sites get rows -- engine/device_index.py site_* arrays), so
 this class exists for reference-surface completeness and as the oracle for
 ``GenoConfig(pcompact=True)`` semantics: iteration ORDER differs from the

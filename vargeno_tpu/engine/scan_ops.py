@@ -1,90 +1,26 @@
-"""MXU prefix sums for the engine's compaction passes.
+"""Prefix sums and stream compaction for the engine's compaction passes.
 
 Every stream-compaction in the batched pipeline (low-quality k-mer items,
 probe hits, ambiguous exact hits, agreeing contexts, site hits) needs an
 exclusive prefix sum of a 0/1 (or small-int) mask over 10^5..10^7 lanes.
-XLA lowers ``jnp.cumsum`` on TPU to a log-depth shifted-add chain whose
-passes are all bandwidth+latency bound; at 3M lanes that is ~15-20 ms per
-call and the profile shows the cumsums as a top step cost. A blocked
-triangular-matmul formulation rides the MXU instead: reshape to (rows, 128)
-lanes, one (128, 128) upper-triangular ones matmul gives within-row
-inclusive sums, row totals recurse, one broadcast add rebases rows.
-
-Exactness: float32 accumulation is exact for integers < 2^24, so this is
-bit-exact for non-negative int inputs whose TOTAL stays below 2^24 -- true
-for every engine mask (lane counts cap the total). Callers above that
-bound (none today) fall back to jnp.cumsum automatically.
+Both are left to XLA. On the H100, ``jnp.cumsum`` beat a float32
+triangular-matmul prefix sum at 3.2M lanes, and prefix-sum + scatter
+compaction beat a sort-based one about 2x at 0.3M and 3.2M lanes
+(``tools/bench_ops.py`` keeps both candidates and times them; PERF.md).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax.numpy as jnp
-import numpy as np
-
-_C = 128  # lane width: one MXU tile
-
-
-@functools.lru_cache(maxsize=None)
-def _tri(n: int):
-    # numpy constant: embedded by value at trace time, so the cache is
-    # safe across devices/meshes (CPU test mesh vs the real chip)
-    i = np.arange(n)
-    return (i[:, None] <= i[None, :]).astype(np.float32)
-
-
-def _cumsum_f32(x):
-    """Inclusive prefix sum of a flat f32 vector (values >= 0, total
-    < 2^24), recursive blocked triangular matmuls."""
-    n = x.shape[0]
-    if n <= 4 * _C:
-        pad = -n % _C if n > _C else 0
-        if n <= _C:
-            m = _tri(max(n, 1))
-            return (x[None, :] @ m)[0]
-        xp = jnp.pad(x, (0, pad))
-        m = _tri(xp.shape[0])
-        return (xp[None, :] @ m)[0][:n]
-    rows = -(-n // _C)
-    xp = jnp.pad(x, (0, rows * _C - n)).reshape(rows, _C)
-    within = xp @ _tri(_C)                     # (rows, C) inclusive in-row
-    totals = within[:, -1]
-    base = _cumsum_f32(totals) - totals        # exclusive row bases
-    return (within + base[:, None]).reshape(-1)[:n]
 
 
 def cumsum_mask(x, dtype=jnp.int32):
-    """Inclusive prefix sum of a flat non-negative small-int/bool array,
-    bit-exact vs jnp.cumsum when the total < 2^24 (guaranteed by shape
-    for 0/1 masks shorter than 2^24 lanes)."""
-    n = x.shape[0]
-    if x.dtype == jnp.bool_:
-        limit_ok = n < (1 << 24)
-    else:
-        # small-int inputs (values <= 10 in the engine): conservative bound
-        limit_ok = n < (1 << 20)
-    if n < 2 * _C or not limit_ok:
-        return jnp.cumsum(x.astype(dtype))
-    return _cumsum_f32(x.astype(jnp.float32)).astype(dtype)
+    """Inclusive prefix sum of a flat non-negative small-int/bool array in
+    ``dtype`` (an integer scan: exact at any length)."""
+    return jnp.cumsum(x.astype(dtype))
 
 
-def _default_compact_method() -> str:
-    """TPU: sort-based compaction (the device radix sort runs ~3 G keys/s,
-    ~10x the effective rate of a cumsum-targeted scatter of the same lane
-    count -- measured with dependent-chain timing on the v5e). CPU: the
-    cumsum+scatter path (XLA:CPU sorts are comparison-based and slower
-    than the linear scatter). Both produce identical results."""
-    import jax
-
-    try:
-        plat = jax.devices()[0].platform
-    except Exception:  # noqa: BLE001 - no backend configured yet
-        plat = "cpu"
-    return "scan" if plat == "cpu" else "sort"
-
-
-def compact_src(mask, n_out: int, method: str | None = None):
+def compact_src(mask, n_out: int):
     """Stream-compaction index map: ``mask`` (M,) bool -> ``src`` (n_out,)
     int32 where src[j] = index of the j-th set lane (in ascending lane
     order), -1 for empty slots; plus the count of set lanes that did not
@@ -92,37 +28,17 @@ def compact_src(mask, n_out: int, method: str | None = None):
 
     This is THE engine compaction primitive (low-quality items, probe
     hits, ambiguous exact hits, sparse events, agreeing contexts, site
-    hits, active probe lanes).  Two exact implementations:
-
-    - ``sort``: key = lane_id | (miss << 31); one u32 device sort brings
-      every set lane to the front in order; take the first n_out keys.
-    - ``scan``: exclusive-prefix-sum targets + one scatter of the lane
-      iota (the original formulation; kept for CPU where it is faster).
+    hits, active probe lanes): exclusive-prefix-sum targets + one scatter
+    of the lane iota.
     """
     (m,) = mask.shape
     assert m < (1 << 31), "compact_src: lane id must fit in 31 bits"
-    if method is None:
-        method = _default_compact_method()
     total = jnp.sum(mask, dtype=jnp.int32)
-    if method == "sort":
-        import jax
-
-        key = jnp.arange(m, dtype=jnp.uint32) | jnp.where(
-            mask, jnp.uint32(0), jnp.uint32(0x80000000))
-        if n_out > m:   # more output slots than lanes: pad with misses
-            key = jnp.concatenate(
-                [key, jnp.full(n_out - m, 0xFFFFFFFF, jnp.uint32)])
-        skey = jax.lax.sort(key, is_stable=False)[:n_out]
-        ok = skey < jnp.uint32(0x80000000)
-        src = jnp.where(ok, skey, jnp.uint32(0)).astype(jnp.int32)
-        src = jnp.where(ok, src, -1)
-        kept = jnp.sum(ok, dtype=jnp.int32)
-    else:
-        tgt = cumsum_mask(mask) - 1
-        keep = mask & (tgt < n_out)
-        src = jnp.full(n_out, -1, jnp.int32).at[
-            jnp.where(keep, tgt, n_out)].set(
-                jnp.arange(m, dtype=jnp.int32), mode="drop",
-                unique_indices=True)
-        kept = jnp.sum(keep, dtype=jnp.int32)
+    tgt = cumsum_mask(mask) - 1
+    keep = mask & (tgt < n_out)
+    src = jnp.full(n_out, -1, jnp.int32).at[
+        jnp.where(keep, tgt, n_out)].set(
+            jnp.arange(m, dtype=jnp.int32), mode="drop",
+            unique_indices=True)
+    kept = jnp.sum(keep, dtype=jnp.int32)
     return src, total - kept

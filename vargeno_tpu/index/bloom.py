@@ -19,7 +19,7 @@ src/generate_bf.cc:90-277) including their quirks:
 Bitmaps are stored LSB-first in uint64 words (bit i -> word i>>6, bit i&63),
 matching sdsl::bit_vector's memory layout so the reference's .bf files can be
 imported/exported losslessly; the same buffer reinterpreted as little-endian
-uint32 words is what the TPU engine consumes.
+uint32 words is what the device engine consumes.
 """
 
 from __future__ import annotations

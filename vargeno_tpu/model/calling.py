@@ -12,8 +12,8 @@ Vectorized reimplementation of choose_best_genotype (src/qv.cc:1789-1848):
 (0,0) and (MAX_COV,MAX_COV) count pairs yield no call (src/qv.cc:1821-1823).
 
 Host path uses float64 numpy to match the reference's double math digit for
-digit; a bfloat16/f32 device variant lives in the engine for on-TPU calling
-when bit-parity is not required.
+digit; a bfloat16/f32 device variant lives in the engine for on-device
+calling when bit-parity is not required.
 """
 
 from __future__ import annotations

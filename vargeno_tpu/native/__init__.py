@@ -7,6 +7,7 @@ Falls back cleanly when no compiler is available: every consumer checks
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -15,19 +16,53 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "fastio.cc")
-_SO = os.path.join(_DIR, "libvgtfastio.so")
+# build output lives in the checkout's gitignored build/ tree
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
+                         "native")
+_CMD = ("g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def cpu_model() -> str:
+    """The host CPU's model name (``-march=native`` code is only valid on
+    the CPU it was built for)."""
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-             "-o", _SO, _SRC],
-            check=True, capture_output=True)
-        return True
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    import platform
+
+    return platform.processor() or platform.machine()
+
+
+def build_key(src: bytes, cmd=_CMD, cpu: str | None = None) -> str:
+    """Hash of the source, the compile command and the CPU model: a library
+    built from other source, flags or for another CPU never matches."""
+    h = hashlib.sha256(src)
+    h.update("\0".join(cmd).encode())
+    h.update((cpu if cpu is not None else cpu_model()).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path() -> str:
+    with open(_SRC, "rb") as f:
+        key = build_key(f.read())
+    return os.path.join(BUILD_DIR, f"libvgtfastio-{key}.so")
+
+
+def _build(so: str) -> bool:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        subprocess.run([*_CMD, "-o", tmp, _SRC], check=True,
+                       capture_output=True)
+        os.replace(tmp, so)   # atomic: a concurrent build never sees a
+        return True           # partial file
     except (OSError, subprocess.CalledProcessError):
         return False
 
@@ -38,12 +73,11 @@ def _load():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) or (
-                os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-            if not _build():
-                return None
+        so = lib_path()
+        if not os.path.exists(so) and not _build(so):
+            return None
         try:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(so)
         except OSError:
             return None
         lib.vgt_fastq_batch.restype = ctypes.c_int64

@@ -1,6 +1,6 @@
 // Native host-side I/O runtime: FASTQ -> fixed-shape device batch encoder.
 //
-// The TPU engine consumes (B, L) uint8 base-code arrays plus per-read k-mer
+// The device engine consumes (B, L) uint8 base-code arrays plus per-read k-mer
 // counts and per-kmer-index quality bytes (see io/fastq.py). Python-level
 // parsing tops out well below device throughput, so this C++ path does the
 // byte scanning and 2-bit encoding; Python keeps orchestration. The
@@ -118,8 +118,7 @@ int64_t vgt_fastq_batch(const char* buf, int64_t len, int64_t* cursor,
 // (engine/batch.py encode_batch; reference semantics src/qv.cc:810-828:
 // a non-ACGT base anywhere in the read's in-use windows drops the whole
 // read in that orientation). Shipping the packed words instead of raw
-// codes cuts per-batch host->device transfer ~3.6x, which matters on a
-// tunneled/high-latency dispatch link.
+// codes cuts per-batch host->device transfer ~3.6x.
 void vgt_encode_batch(const uint8_t* codes, const int32_t* n_kmers,
                       int64_t B, int64_t L, int64_t K,
                       uint32_t* hi, uint32_t* lo, uint8_t* kvalid,

@@ -1,9 +1,9 @@
 """Sequential oracle engine: a faithful host-side model of `vargeno geno`.
 
-This is NOT the TPU engine (see vargeno_tpu.engine). It is a deliberately
+This is NOT the device engine (see vargeno_tpu.engine). It is a deliberately
 direct numpy/Python restatement of the reference's genotyping loop
 (src/qv.cc:475-1848), used as (a) the behavioral specification the batched
-TPU engine is tested against read-by-read, and (b) a debuggable slow path.
+device engine is tested against read-by-read, and (b) a debuggable slow path.
 
 Replicated reference behaviors (with citations):
 - jumpgate-block exact queries == full-key binary search (qv.cc:194-240).

@@ -21,15 +21,22 @@ def synth_genome(rng, sizes=(20_000,), names=("chrS1",)):
     return out
 
 
+def _ascii(arr) -> bytes:
+    """A U1 base array as ASCII bytes (one byte per base; U1 stores each
+    character as one UCS-4 code unit)."""
+    return np.ascontiguousarray(arr).view(np.uint32).astype(np.uint8) \
+        .tobytes()
+
+
 def write_inputs(tmpdir: str, rng, genome, n_snps=40, n_reads=2000,
                  read_len=101, err_frac=0.15):
     fa = os.path.join(tmpdir, "genome.fa")
-    with open(fa, "w") as f:
+    with open(fa, "wb") as f:
         for name, arr in genome:
-            f.write(f">{name}\n")
-            s = "".join(arr)
-            for i in range(0, len(s), 70):
-                f.write(s[i:i + 70] + "\n")
+            f.write(f">{name}\n".encode())
+            s = _ascii(arr)
+            f.write(b"".join(s[i:i + 70] + b"\n"
+                             for i in range(0, len(s), 70)))
 
     rows = []
     gts = {}
@@ -55,16 +62,13 @@ def write_inputs(tmpdir: str, rng, genome, n_snps=40, n_reads=2000,
     # then slice reads from REF or ALT haplotype per diploid genotype
     code_of = {"A": 0, "C": 1, "G": 2, "T": 3}
     fq = os.path.join(tmpdir, "reads.fq")
-    base_codes = np.array([code_of[b] for b in "ACGT"], np.uint8)
     comp_map = np.array([3, 2, 1, 0], np.uint8)
-    b2c = np.array(list("ACGT"))
+    b2c = np.frombuffer(b"ACGT", np.uint8)
 
     chrom_ref = {}
     chrom_alt = {}
     for name, arr in genome:
-        codes = np.array([code_of[c] for c in arr.tolist()], np.uint8) \
-            if arr.dtype.kind == "U" else arr
-        ref_codes = np.frombuffer("".join(arr).encode(), np.uint8)
+        ref_codes = np.frombuffer(_ascii(arr), np.uint8)
         lut = np.zeros(256, np.uint8)
         for b, c in code_of.items():
             lut[ord(b)] = c
@@ -93,7 +97,7 @@ def write_inputs(tmpdir: str, rng, genome, n_snps=40, n_reads=2000,
     probs = sizes / sizes.sum()
     choice = rng.choice(len(genome), n_reads, p=probs)
     K = read_len // 32
-    with open(fq, "w") as f:
+    with open(fq, "wb") as f:
         for ci, name in enumerate(names):
             sel = np.flatnonzero(choice == ci)
             if sel.size == 0:
@@ -118,12 +122,12 @@ def write_inputs(tmpdir: str, rng, genome, n_snps=40, n_reads=2000,
             rc = comp_map[reads[:, ::-1]]
             reads = np.where(is_rc[:, None], rc, reads)
             chars = b2c[reads]
-            qual_base = np.full((n_c, read_len), "I")
-            qual_base[rsel, kidx[rsel]] = "0"
-            for j in range(n_c):
-                f.write(f"@r{ci}_{j}\n")
-                f.write("".join(chars[j]) + "\n+\n")
-                f.write("".join(qual_base[j]) + "\n")
+            qual_base = np.full((n_c, read_len), ord("I"), np.uint8)
+            qual_base[rsel, kidx[rsel]] = ord("0")
+            f.write(b"".join(
+                b"@r%d_%d\n%s\n+\n%s\n" % (ci, j, chars[j].tobytes(),
+                                           qual_base[j].tobytes())
+                for j in range(n_c)))
     return fa, vcf, fq
 
 
@@ -153,3 +157,44 @@ def make_synthetic(seed=0, tmpdir=None, **kw):
     fa, vcf, fq = write_inputs(tmpdir, rng, genome, **kw)
     index = build_synth_index(fa, vcf)
     return index, fa, vcf, fq
+
+
+def vote_reference(idx, k, isnb, valid, C: int):
+    """Sequential per-read oracle of improved_index_table_add
+    (qv.cc:132-178) over (E, B) event arrays, for checking the engine's
+    vote (engine.batch.vote_scan). A read holds at most C candidates; an
+    event that would insert into a full table is dropped and counted.
+    Returns (process (B,) bool, target (B,) u32, overflow int)."""
+    idx, k, isnb, valid = (np.asarray(a) for a in (idx, k, isnb, valid))
+    E, B = idx.shape
+    process = np.zeros(B, bool)
+    target = np.zeros(B, np.uint32)
+    overflow = 0
+    for b in range(B):
+        freq, sup = {}, {}
+        best, bf, amb = None, 0, False
+        for e in np.flatnonzero(valid[:, b]):
+            x, kk, nb = int(idx[e, b]), int(k[e, b]), bool(isnb[e, b])
+            if nb and x not in sup:
+                continue
+            if x not in sup and len(sup) >= C:
+                overflow += 1
+                continue
+            freq[x] = freq.get(x, 0) + 1
+            sup.setdefault(x, set()).add(kk)
+            if best is not None and x == best:
+                bf += 1
+            if len(sup[x]) < 2:
+                continue
+            f2 = freq[x]
+            if best is None:
+                best, bf, amb = x, f2, False
+            elif x == best:
+                amb = False
+            elif f2 == bf:
+                amb = True
+            elif f2 > bf:
+                best, bf, amb = x, f2, False
+        process[b] = best is not None and freq[best] > 1 and not amb
+        target[b] = best if best is not None else 0
+    return process, target, overflow

@@ -1,28 +1,18 @@
 """Roofline accounting for the genotyping inner loop.
 
-The north-star metric is reads/sec/chip for the Bloom-probe + dictionary-
-lookup loop *at roofline* (BASELINE.md). Two bounds are computed for a
-given engine configuration + measured per-batch telemetry:
+Two bounds are computed for a given engine configuration + measured
+per-batch telemetry:
 
-1. ``bytes`` bound -- HBM traffic / peak bandwidth. On this workload it is
-   never binding: MEASURED random-access primitives on the chip
-   (tools/bench_gather.py, dependent-chain + value-fetch timing) show
-   XLA's gather/scatter lowering costs a FIXED ~12-35 ns per lane
-   regardless of locality (sorting indices does not help), i.e. ~0.3-4
-   GB/s effective -- far under the 819 GB/s sequential peak.
-2. ``lane`` bound -- the real roofline: per-step gather/scatter lane
-   counts divided into the measured per-lane rates. This is what the
-   engine design optimizes (compaction before expansion everywhere).
-
-Measured rates (TPU v5 lite, 256 MB tables, RTT-corrected):
-word gather 81 M lanes/s; 128 B row gather 30 M lanes/s; 20 B row scatter
-29 M lanes/s; device sort 1.3 G keys/s. A fused Pallas DMA-gather kernel
-was prototyped and rejected: per-lane DMA cannot beat XLA's lowering
-(Mosaic additionally requires 128-lane-aligned row slices).
+1. ``bytes`` bound -- device-memory traffic over the device's published
+   peak bandwidth (``DEVICE_HBM_GBPS``, keyed by ``device_kind``; a device
+   missing from the table is an error, never a default).
+2. ``lane`` bound -- per-step gather/scatter/sort lane counts divided by
+   per-lane rates MEASURED on the device by tools/bench_gather.py. There
+   is no built-in rate table: without a measurement the lane terms are
+   reported as not measured (None).
 
 Reference for the semantics being accounted: the reference's hot loop is
-the same algorithm as pointer chases (src/qv.cc:834-1367) -- one core,
-~100 ns dependent-miss each, which is why it runs at ~8K reads/s.
+the same algorithm as pointer chases (src/qv.cc:834-1367).
 """
 
 from __future__ import annotations
@@ -30,70 +20,35 @@ from __future__ import annotations
 import dataclasses
 
 
-# peak HBM GB/s by device_kind substring (bytes bound only)
+# published peak device-memory bandwidth, GB/s, by jax device_kind
 DEVICE_HBM_GBPS = {
-    "TPU v6": 1640.0,
-    "TPU v5p": 2765.0,
-    "TPU v5 lite": 819.0,
-    "TPU v5": 819.0,
-    "TPU v4": 1228.0,
-    "TPU v3": 900.0,
-    "TPU v2": 700.0,
-    "cpu": 50.0,
+    # NVIDIA H100 SXM5 80 GB (NVIDIA H100 Tensor Core GPU data sheet)
+    "NVIDIA H100 80GB HBM3": 3350.0,
 }
 
-# measured per-lane random-access rates (lanes/sec); tools/bench_gather.py
-# + tools/bench_rowwidth.py. Row-gather rates depend sharply on row WIDTH:
-# XLA row-DMAs full-lane-width (128 u32 = 512 B) rows at ~95 M rows/s but
-# SCALARIZES sub-lane-width rows (128 B: 28 M/s) -- so the model carries a
-# rate per width family. word: 4 B elements (prefilter-shaped). row128 /
-# row512: 32 / 128 u32 rows. scatter: row scatters (none left on the hot
-# path). scalar: flat scalar-element scatters (vectorized, ~25x a row
-# scatter). sort: u32 device sort keys/s (the compaction primitive).
-DEVICE_LANE_RATES = {
-    "TPU v5 lite": dict(word=81e6, row=30e6, row128=28e6, row512=95e6,
-                        scatter=29e6, scalar=600e6, sort=2.5e9),
-}
-_DEFAULT_RATES = dict(word=81e6, row=30e6, row128=28e6, row512=95e6,
-                      scatter=29e6, scalar=600e6, sort=2.5e9)
+# bench_gather.measure() key for each lane-rate family; row128 shares the
+# 128 B row measurement
+_MEASURED_KEYS = dict(word="word_gather_1048576", row="row_gather_1048576",
+                      row128="row_gather_1048576",
+                      row512="row_gather_512B", scatter="scatter_rows",
+                      scalar="scatter_scalar", sort="device_sort_u32")
 
 
 def device_hbm_gbps(device_kind: str) -> float:
-    for k, v in DEVICE_HBM_GBPS.items():
-        if k.lower() in device_kind.lower():
-            return v
-    return DEVICE_HBM_GBPS["cpu"]
+    try:
+        return DEVICE_HBM_GBPS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published memory bandwidth for device kind "
+            f"{device_kind!r}; add it to DEVICE_HBM_GBPS with its "
+            f"source") from None
 
 
-def device_lane_rates(device_kind: str, measured: dict | None = None):
-    """word/row/scatter lanes-per-second; ``measured`` (a bench_gather
-    result dict) overrides the built-in table when plausible."""
-    base = dict(_DEFAULT_RATES)
-    for k, v in DEVICE_LANE_RATES.items():
-        if k.lower() in device_kind.lower():
-            base = dict(v)
-    if measured:
-        w = measured.get("word_gather_1048576") or measured.get(
-            "word_gather_2097152")
-        r = measured.get("row_gather_1048576") or measured.get(
-            "row_gather_2097152")
-        s = measured.get("scatter_rows")
-        sc = measured.get("scatter_scalar")
-        so = measured.get("device_sort_u32")
-        if w:
-            base["word"] = w
-        if r:
-            base["row"] = r
-            base["row128"] = r
-        if measured.get("row_gather_512B"):
-            base["row512"] = measured["row_gather_512B"]
-        if s:
-            base["scatter"] = s
-        if sc:
-            base["scalar"] = sc
-        if so:
-            base["sort"] = so
-    return base
+def device_lane_rates(measured: dict | None = None) -> dict:
+    """word/row/scatter/... lanes-per-second from a bench_gather.measure()
+    result; every rate without a measurement is None (not measured)."""
+    measured = measured or {}
+    return {fam: measured.get(key) for fam, key in _MEASURED_KEYS.items()}
 
 
 @dataclasses.dataclass
@@ -102,16 +57,15 @@ class StepTraffic:
     gather/scatter/sort family in engine/batch.py; `lowq_frac` comes from
     the engine's own telemetry so the model tracks the actual workload.
 
-    Row lanes are split by width family because the measured per-row rates
-    differ ~3.4x between sub-lane-width (<=128 B, scalarized) and
-    full-lane-width (512 B, row-DMA) gathers. Narrow-row gathers (8-16 B
-    rows: packed meta pairs, scan tests) are counted in ``word_lanes`` --
-    measured within a few 10s of % of the 4 B word rate."""
+    Row lanes are split by width family (<=128 B window/aux rows against
+    512 B bucket rows) because bench_gather measures each family's rate
+    on its own. Narrow-row gathers (8-16 B rows: packed meta pairs, scan
+    tests) are counted in ``word_lanes``."""
 
     bytes_total: float
     word_lanes: float
-    row128_lanes: float    # sub-lane-width rows (window/aux gathers)
-    row512_lanes: float    # full-lane-width bucket rows (exact probes)
+    row128_lanes: float    # narrow rows (window/aux gathers)
+    row512_lanes: float    # 512 B bucket rows (exact probes)
     scalar_lanes: float    # scalar-element scatter source lanes
     sort_keys: float       # u32 keys through sort-based compactions
     detail: dict
@@ -157,7 +111,7 @@ def step_traffic(cfg, dix, B: int, lowq_frac: float = 0.05) -> StepTraffic:
     # are compacted first; every record is 2 scalar word scatters
     d["events"] = (0, NAX + NSE, 0, 2 * (B * 2 * K + NAX + NSE), 0,
                    B * (E + 1) * 8 + (NAX + NSE) * 28)
-    d["vote"] = (0, 0, 0, 0, 0, E * B * 8)        # Pallas VMEM streams
+    d["vote"] = (0, 0, 0, 0, 0, E * B * 8)        # event stream read once
     d["pileup"] = (2 * FA + FA // 2, 2 * FA, 0, FA, 0,
                    FA * 36 + (FA // 2) * 12)
     # sort-based compactions: items + probe hits + amb + aux + sparse
@@ -187,29 +141,26 @@ def roofline(cfg, dix, device_kind: str, B: int,
     from reverse-orientation retry batches."""
     tr = step_traffic(cfg, dix, B, lowq_frac=lowq_frac)
     mult = (1.0 + retry_frac) / B
-    rates = device_lane_rates(device_kind, gather_rates)
-    lane_time_per_read = (tr.word_lanes / rates["word"]
-                          + tr.row128_lanes / rates["row128"]
-                          + tr.row512_lanes / rates["row512"]
-                          + tr.scalar_lanes / rates["scalar"]
-                          + tr.sort_keys / rates["sort"]) * mult
     bw = device_hbm_gbps(device_kind) * 1e9
+    rates = device_lane_rates(gather_rates)
+    terms = ((tr.word_lanes, "word"), (tr.row128_lanes, "row128"),
+             (tr.row512_lanes, "row512"), (tr.scalar_lanes, "scalar"),
+             (tr.sort_keys, "sort"))
+    lane_bound = None
+    if all(rates[fam] for _, fam in terms):
+        lane_bound = 1.0 / (sum(n / rates[fam] for n, fam in terms) * mult)
     bytes_per_read = tr.bytes_total * mult
     bw_bound = bw / bytes_per_read
-    lane_bound = 1.0 / lane_time_per_read
     out = dict(
         device=device_kind,
         bytes_per_read=round(bytes_per_read, 1),
-        lanes_per_read=dict(
-            word=round(tr.word_lanes * mult, 1),
-            row128=round(tr.row128_lanes * mult, 1),
-            row512=round(tr.row512_lanes * mult, 1),
-            scalar=round(tr.scalar_lanes * mult, 1),
-            sort=round(tr.sort_keys * mult, 1)),
+        lanes_per_read={fam: round(n * mult, 1) for n, fam in terms},
         bw_bound_reads_per_sec=round(bw_bound, 0),
-        lane_bound_reads_per_sec=round(lane_bound, 0),
+        lane_bound_reads_per_sec=(round(lane_bound, 0) if lane_bound
+                                  else None),
         achieved_reads_per_sec=round(measured_reads_per_sec, 1),
         bw_roofline_frac=round(measured_reads_per_sec / bw_bound, 4),
-        lane_roofline_frac=round(measured_reads_per_sec / lane_bound, 4),
+        lane_roofline_frac=(round(measured_reads_per_sec / lane_bound, 4)
+                            if lane_bound else None),
     )
     return out
